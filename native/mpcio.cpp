@@ -1,6 +1,6 @@
-// Host-side native I/O for mpc_rs_tpu: COBS framing codec + serial port.
+// Host-side native I/O for mpc_rs_jax: COBS framing codec + serial port.
 //
-// TPU-native re-implementation of the reference wire layer
+// Native re-implementation of the reference wire layer
 // (src/packet.rs:43-61 cobs stuff/unstuff; examples/mpc-ukf-commu.rs:38-42
 // serialport open @115200 with 10 ms timeout; :268-277 read_until(0x00)).
 // Runs on the host CPU feeding device arrays; compiled as a shared library

@@ -1,4 +1,4 @@
-// Independent native cross-validation oracle for mpc_rs_tpu.
+// Independent native cross-validation oracle for mpc_rs_jax.
 //
 // PURPOSE (BASELINE.md item 2 surrogate): the reference's Rust examples
 // cannot be rebuilt in this image (no cargo), so trajectories regenerated

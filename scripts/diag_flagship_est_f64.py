@@ -30,10 +30,10 @@ jax.config.update("jax_enable_x64", True)
 
 import jax.numpy as jnp
 
-from mpc_rs_tpu.controllers.mppi import MppiConfig, mppi_solve
-from mpc_rs_tpu.estimators.ukf import ukf_init, ukf_predict, ukf_update
-from mpc_rs_tpu.models import costs, dynamics, noise, observation
-from mpc_rs_tpu.models.params import CartPoleParams
+from mpc_rs_jax.controllers.mppi import MppiConfig, mppi_solve
+from mpc_rs_jax.estimators.ukf import ukf_init, ukf_predict, ukf_update
+from mpc_rs_jax.models import costs, dynamics, noise, observation
+from mpc_rs_jax.models.params import CartPoleParams
 
 
 def main():

@@ -19,13 +19,13 @@ jax.config.update("jax_platforms", "cpu")
 import jax.numpy as jnp
 import numpy as np
 
-from mpc_rs_tpu.controllers.mppi import MppiConfig
-from mpc_rs_tpu.estimators.ukf import ukf_init
-from mpc_rs_tpu.models import costs, dynamics, noise, observation
-from mpc_rs_tpu.models.params import CartPoleParams
-from mpc_rs_tpu.parallel.mesh import make_mesh
-from mpc_rs_tpu.parallel.scenario import init_scenario_carry, make_scenario_step
-from mpc_rs_tpu.utils import as_vector_fn
+from mpc_rs_jax.controllers.mppi import MppiConfig
+from mpc_rs_jax.estimators.ukf import ukf_init
+from mpc_rs_jax.models import costs, dynamics, noise, observation
+from mpc_rs_jax.models.params import CartPoleParams
+from mpc_rs_jax.parallel.mesh import make_mesh
+from mpc_rs_jax.parallel.scenario import init_scenario_carry, make_scenario_step
+from mpc_rs_jax.utils import as_vector_fn
 
 B = int(sys.argv[1]) if len(sys.argv) > 1 else 256
 K = int(sys.argv[2]) if len(sys.argv) > 2 else 256

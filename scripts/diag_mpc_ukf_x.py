@@ -15,10 +15,10 @@ jax.config.update("jax_enable_x64", True)
 import jax.numpy as jnp
 import numpy as np
 
-from mpc_rs_tpu.controllers.panoc import PanocConfig, box_projection, panoc_solve
-from mpc_rs_tpu.models import dynamics, reference
-from mpc_rs_tpu.models.params import CartPoleParams
-from mpc_rs_tpu.utils import as_vector_fn
+from mpc_rs_jax.controllers.panoc import PanocConfig, box_projection, panoc_solve
+from mpc_rs_jax.models import dynamics, reference
+from mpc_rs_jax.models.params import CartPoleParams
+from mpc_rs_jax.utils import as_vector_fn
 
 P = CartPoleParams.single_wheel_heavy_j()
 N, DT = 10, 0.05

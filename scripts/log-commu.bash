@@ -5,5 +5,5 @@ set -euo pipefail
 EXAMPLE="${1:-mpc-ukf-commu}"
 shift || true
 mkdir -p "logs/${EXAMPLE}"
-python -m mpc_rs_tpu.apps.run "${EXAMPLE}" --console "$@" \
+python -m mpc_rs_jax.apps.run "${EXAMPLE}" --console "$@" \
   | tee "logs/${EXAMPLE}/${EXAMPLE}-$(date +%Y%m%d%H%M%S).log"

@@ -5,13 +5,13 @@ from entropy (src/mppi.rs:41), so closed-loop parity with it is inherently
 STATISTICAL. The round-4 evidence was matched-noise / per-stage
 re-synchronized; this harness adds the complementary statement: N
 free-running episodes PER SIDE, each side drawing its OWN noise (library:
-jax.random / the production in-kernel samplers; oracle: numpy Generator,
+jax.random / the fused kernel's counter-based generator; oracle: numpy Generator,
 f64), compared as distributions — survival rates (Wilson 95% CIs), and
 KS two-sample tests on per-episode θ-RMS and max|θ|.
 
 Workloads (matched configs on both sides; K at the pinned acceptance
-operating points — the oracle is single-core C++, the reference budgets
-K=5e5..8e5 are TPU-side only, see BENCH):
+operating points — the oracle is single-core C++, so the reference
+budgets K=5e5..8e5 run only on the library side, see chip_smoke.py):
 
 - cartpole4     mppi4-non-liner sim loop (deterministic plant, sampling
                 noise only): DT=0.1, 10 s, K=16384, λ=0.5, σ=3, ±20,
@@ -22,8 +22,8 @@ K=5e5..8e5 are TPU-side only, see BENCH):
                 100 Hz, K=8192, T=1.2 N=8, λ=1.4 σ=4 ±10, 2 N pulse
                 t∈(1,1.5), R=diag(σ) (σ-as-R quirk), q=gen_q6(2.15·dt),
                 10 s, π/2 guard. Library: build_fleet(feed_true_state=True)
-                — the full production tier (Pallas kernel + clt4a sampler +
-                SoA UKF on TPU). [mppi4-non-liner-ukf.rs:13-34,224-288]
+                — the full production tier (fused MPPI kernel + SoA UKF on a
+                GPU). [mppi4-non-liner-ukf.rs:13-34,224-288]
 - flagship-est  same, estimator in loop (controller sees the UKF estimate).
 - cartpole4-est the cartpole4 FLEET stack (mppi4-non-liner-s semantics)
                 with its UKF(4,3) in the loop at the fleet cadence: 20 Hz
@@ -41,11 +41,11 @@ K=5e5..8e5 are TPU-side only, see BENCH):
 
 Usage:
   python scripts/parity_dist.py --config cartpole4 --episodes 200 \
-      [--platform cpu|tpu] [--out PARITY_DIST_r05.json]
+      [--out PARITY_DIST.json]
 
 Each invocation updates one config entry in the output JSON (read-modify-
-write), so configs can run separately (fleet configs on the TPU chip,
-oracle sides always on CPU processes).
+write), so configs can run separately (fleet configs on a GPU, oracle
+sides always on CPU processes).
 """
 
 from __future__ import annotations
@@ -170,13 +170,13 @@ def _q4_data(dt_sub: float) -> np.ndarray:
     if "jax" in _sys.modules:  # already initialized — inline is no worse
         import jax.numpy as jnp
 
-        from mpc_rs_tpu.models import noise as noise_mod
+        from mpc_rs_jax.models import noise as noise_mod
 
         return np.asarray(noise_mod.gen_q4(jnp.float64(dt_sub)), np.float64)
     code = (
         "import jax, json; jax.config.update('jax_platforms','cpu');"
         "import jax.numpy as jnp; import sys; sys.path.insert(0, %r);"
-        "from mpc_rs_tpu.models import noise;"
+        "from mpc_rs_jax.models import noise;"
         "print(json.dumps(noise.gen_q4(jnp.float64(%r)).tolist()))"
         % (ROOT, dt_sub)
     )
@@ -266,9 +266,9 @@ def run_library_cartpole4(episodes: int) -> list[dict]:
     import jax
     import jax.numpy as jnp
 
-    from mpc_rs_tpu.controllers.mppi import MppiConfig, mppi_solve
-    from mpc_rs_tpu.models import costs, dynamics
-    from mpc_rs_tpu.models.params import CartPoleParams
+    from mpc_rs_jax.controllers.mppi import MppiConfig, mppi_solve
+    from mpc_rs_jax.models import costs, dynamics
+    from mpc_rs_jax.models.params import CartPoleParams
 
     p = CartPoleParams.single_wheel()
     cfg = MppiConfig(n_horizon=8, n_rollouts=K_CART, lambda_=0.5, std_dev=3.0,
@@ -319,26 +319,25 @@ def run_library_cartpole4(episodes: int) -> list[dict]:
 def run_library_fleet(model: str, k: int, n_ticks: int, episodes: int,
                       feed_true: bool, **fleet_overrides) -> list[dict]:
     """Free-running fleet episodes on the PRODUCTION tier (apps/fleet.py —
-    Pallas kernel + in-kernel samplers + SoA UKF on TPU, jnp backend
-    elsewhere), one scenario per episode.
+    the fused MPPI kernel + SoA UKF on a GPU, the plain path elsewhere),
+    one scenario per episode.
 
-    ``fleet_overrides`` forward to build_fleet (sampler=, fast_math=,
-    sqrt_method=, ukf_layout=, backend=, ukf_alpha=) — used to attribute
-    distributional deltas to individual fast tiers."""
+    ``fleet_overrides`` forward to build_fleet (sqrt_method=, ukf_layout=,
+    backend=, ukf_alpha=) — used to attribute distributional deltas to
+    individual tiers."""
     import jax
     import jax.numpy as jnp
 
-    from mpc_rs_tpu.apps.fleet import build_fleet
-    from mpc_rs_tpu.parallel.mesh import make_mesh
+    from mpc_rs_jax.apps.fleet import build_fleet
+    from mpc_rs_jax.ops import resolve_backend
+    from mpc_rs_jax.parallel.mesh import make_mesh
 
-    on_tpu = jax.default_backend() == "tpu"
-    backend = fleet_overrides.pop(
-        "backend", "pallas" if on_tpu else "vmap")
+    backend = resolve_backend(fleet_overrides.pop("backend", None))
     b = max(8, ((episodes + 7) // 8) * 8)
     mesh = make_mesh({"scenario": 1, "rollouts": 1})
     tick, carry, dt, theta_idx, guard = build_fleet(
         model, k, backend, mesh, scenarios=b,
-        feed_true_state=feed_true, pallas_interpret=not on_tpu,
+        feed_true_state=feed_true,
         **fleet_overrides,
     )
 
@@ -396,11 +395,11 @@ def run_qp_parking(episodes: int) -> dict:
     jax.config.update("jax_enable_x64", True)  # f64 vs the f64 oracle
     import jax.numpy as jnp
 
-    from mpc_rs_tpu.controllers.qp import (active_set_inverse_table,
+    from mpc_rs_jax.controllers.qp import (active_set_inverse_table,
                                            box_qp_newton, build_condensed_qp,
                                            qp_linear_term)
-    from mpc_rs_tpu.models import dynamics, reference
-    from mpc_rs_tpu.models.params import CartPoleParams
+    from mpc_rs_jax.models import dynamics, reference
+    from mpc_rs_jax.models.params import CartPoleParams
 
     tno = _oracle_mod()
     lib = tno.load_oracle()
@@ -521,8 +520,8 @@ def main():
                     default="both",
                     help="run one side only (results cached in --out under "
                          "<config>.raw.<side>) so the library side can run "
-                         "on the TPU chip in a separate invocation")
-    ap.add_argument("--out", default=os.path.join(ROOT, "PARITY_DIST_r05.json"))
+                         "on a GPU in a separate invocation")
+    ap.add_argument("--out", default=os.path.join(ROOT, "PARITY_DIST.json"))
     args = ap.parse_args()
 
     data = {}

@@ -15,9 +15,12 @@ holding a solve for 60 ms (the reference's effective rate) demands the
 reference's K=5e5 solution quality, while very fast re-solving chases the
 noisy estimate (σ_rpm=200 sensor noise) with fresh exploration noise every
 3 ms. The (50 Hz, K=16384) point is robust on CPU-CI budgets, so the
-acceptance spec pins it; the TPU fleet's validated point is
-(100 Hz, K=8192) with matched 100 Hz sensing and dt-scaled Q, survival
-0.999+ at B=1024 (DESIGN.md §4).
+acceptance spec pins it; the fleet's validated point is (100 Hz, K=8192)
+with matched 100 Hz sensing and dt-scaled Q (DESIGN.md §4).
+
+The sweep runs in a pool of worker processes pinned to the CPU on purpose:
+a JAX process reserves most of a GPU's memory when it starts, so several
+workers cannot share one card.
 
 Usage: python scripts/sweep_control_rate.py [--seeds 20] [--jobs 4] [--k 16384]
 """
@@ -44,7 +47,7 @@ def run_one(item):
     jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_enable_x64", True)
 
-    from mpc_rs_tpu.apps.run import main as run_main
+    from mpc_rs_jax.apps.run import main as run_main
 
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as td:

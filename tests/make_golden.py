@@ -20,11 +20,11 @@ jax.config.update("jax_enable_x64", True)
 import jax.numpy as jnp
 import numpy as np
 
-from mpc_rs_tpu.controllers.mppi import MppiConfig, mppi_solve
-from mpc_rs_tpu.estimators.ukf import ukf_init, ukf_predict, ukf_update
-from mpc_rs_tpu.models import costs, dynamics, observation
-from mpc_rs_tpu.models.params import CartPoleParams
-from mpc_rs_tpu.utils import as_vector_fn
+from mpc_rs_jax.controllers.mppi import MppiConfig, mppi_solve
+from mpc_rs_jax.estimators.ukf import ukf_init, ukf_predict, ukf_update
+from mpc_rs_jax.models import costs, dynamics, observation
+from mpc_rs_jax.models.params import CartPoleParams
+from mpc_rs_jax.utils import as_vector_fn
 
 OUT = os.path.join(os.path.dirname(__file__), "golden")
 
@@ -70,9 +70,9 @@ def golden_ukf_cartpole():
 
 
 def golden_qp_mpc():
-    from mpc_rs_tpu.controllers.panoc import PanocConfig, box_projection, panoc_solve
-    from mpc_rs_tpu.controllers.qp import build_condensed_qp, make_qp_value_and_grad
-    from mpc_rs_tpu.models import reference
+    from mpc_rs_jax.controllers.panoc import PanocConfig, box_projection, panoc_solve
+    from mpc_rs_jax.controllers.qp import build_condensed_qp, make_qp_value_and_grad
+    from mpc_rs_jax.models import reference
 
     p = CartPoleParams.single_wheel()
     dt = 0.8 / 8
@@ -100,12 +100,12 @@ def golden_box_qp_newton():
     both solve paths produce identical iterates — pinned via the masked-
     Cholesky path; test checks the inverse-table path against the same
     fixture)."""
-    from mpc_rs_tpu.controllers.qp import (
+    from mpc_rs_jax.controllers.qp import (
         box_qp_newton,
         build_condensed_qp,
         qp_linear_term,
     )
-    from mpc_rs_tpu.models import reference
+    from mpc_rs_jax.models import reference
 
     p = CartPoleParams.single_wheel()
     dt = 0.8 / 8
@@ -131,8 +131,8 @@ def golden_flagship_multirate():
     modes (DEBUG_UKF true-state default and --use-ukf-estimate) — pins
     runtime/loop.py scheduling + the whole flagship stack end-to-end
     (VERDICT round-1 Weak #5: a loop-scheduling regression must fail CI)."""
-    from mpc_rs_tpu.apps.mppi_examples import mppi4_non_liner_ukf
-    from mpc_rs_tpu.apps.run import build_parser
+    from mpc_rs_jax.apps.mppi_examples import mppi4_non_liner_ukf
+    from mpc_rs_jax.apps.run import build_parser
 
     import contextlib
     import io
@@ -157,8 +157,8 @@ def golden_commu_packet_chain():
     COBS decode → enable-mask parse → gen_r/gen_q → masked-hx UKF →
     6→4 state slice. Pins the HW twin's computational path without
     wall-clock nondeterminism (the PTY transport is covered by test_io)."""
-    from mpc_rs_tpu.io.packets import Sensor3
-    from mpc_rs_tpu.models import noise as noise_mod
+    from mpc_rs_jax.io.packets import Sensor3
+    from mpc_rs_jax.models import noise as noise_mod
 
     p = CartPoleParams.two_wheel()
     # mppi4-ukf-commu's own fx, incl. its cos(ẍ) denominator quirk (:139)
@@ -209,10 +209,9 @@ def golden_commu_packet_chain():
 
 def golden_pallas_external_noise():
     """Closed loop through the FUSED KERNEL tier (interpret mode) under a
-    fixed external noise tensor — pins the kernel's sampling layout,
-    rollout, streaming LSE and finalize end-to-end (round-1 only pinned
-    same-noise parity per solve, not a trajectory)."""
-    from mpc_rs_tpu.ops.mppi_pallas import mppi_solve_pallas
+    fixed external noise tensor — pins the kernel's rollout, log-sum-exp
+    merge and finalize end-to-end."""
+    from mpc_rs_jax.ops.mppi_pallas import mppi_solve_pallas
 
     p = CartPoleParams.single_wheel()
     dt = 0.8 / 8
@@ -226,9 +225,11 @@ def golden_pallas_external_noise():
     xs, us = [], []
     for i in range(10):
         eps = (3.0 * rng.standard_normal((1, 8, bs, 128))).astype(np.float32)
+        # the fixture's (block, step, sublane, lane) draw order, as (K, N)
+        # rows: rollout = sublane·128 + lane
+        eps_kn = eps.transpose(0, 2, 3, 1).reshape(1024, 8)
         u_n, st = mppi_solve_pallas(
-            cfg, step, costs.shaped4, 4, 0, x, u_n,
-            block_sublanes=bs, interpret=True, noise=jnp.asarray(eps),
+            cfg, step, costs.shaped4, 4, 0, x, u_n, interpret=True, noise=jnp.asarray(eps_kn),
         )
         assert int(st) == 0
         x = jnp.stack(step(*(x[j] for j in range(4)), u_n[0]))

@@ -8,7 +8,7 @@ import os
 import numpy as np
 import pytest
 
-from mpc_rs_tpu.apps.run import build_parser, main as run_main
+from mpc_rs_jax.apps.run import build_parser, main as run_main
 
 
 def _run(argv, tmp_path):
@@ -20,7 +20,7 @@ def _run(argv, tmp_path):
 
 
 def test_parser_lists_all_examples():
-    from mpc_rs_tpu.apps.registry import EXAMPLES
+    from mpc_rs_jax.apps.registry import EXAMPLES
 
     assert len(EXAMPLES) == 26  # 23 reference binaries (sans dead op-mpc-tmp) + fleet + serve + tune
     ap = build_parser()
@@ -68,7 +68,7 @@ def test_pid_runs_and_logs(tmp_path):
 
 
 @pytest.mark.skipif(
-    not __import__("mpc_rs_tpu.io.cobs", fromlist=["native_available"]).native_available(),
+    not __import__("mpc_rs_jax.io.cobs", fromlist=["native_available"]).native_available(),
     reason="needs native serial lib",
 )
 def test_uart_sim_mcu(tmp_path):
@@ -91,7 +91,7 @@ def test_fleet_runs_and_checkpoints(tmp_path):
 
 
 @pytest.mark.skipif(
-    not __import__("mpc_rs_tpu.io.cobs", fromlist=["native_available"]).native_available(),
+    not __import__("mpc_rs_jax.io.cobs", fromlist=["native_available"]).native_available(),
     reason="needs native serial lib",
 )
 def test_serve_bridge_sim_mcus(tmp_path):
@@ -112,7 +112,7 @@ def test_serve_bridge_sim_mcus(tmp_path):
 
 
 @pytest.mark.skipif(
-    not __import__("mpc_rs_tpu.io.cobs", fromlist=["native_available"]).native_available(),
+    not __import__("mpc_rs_jax.io.cobs", fromlist=["native_available"]).native_available(),
     reason="needs native serial lib",
 )
 def test_serve_bridge_pipelined(tmp_path):
@@ -151,9 +151,7 @@ def test_serve_bridge_plan_streaming(tmp_path):
     # No upright assertion here: with M-1 ticks of designed staleness the
     # real-time twin is host-load-sensitive (under the 4-process suite
     # runner, CI scheduling delay compounds the staleness and robots tip
-    # spuriously — measured 5/8-8/8 depending on load). The balancing
-    # statement for plan streaming is the chip-measured SERVE_r05.json
-    # m4_d1/m8_d1 rows: 8/8 upright at time-scale 1.0. This test pins the
+    # spuriously — measured 5/8-8/8 depending on load). This test pins the
     # streaming MECHANICS: M honored, dispatch rate ~ticks/M, tail applied.
 
 
@@ -182,7 +180,7 @@ def test_tune_sweep_grid(tmp_path):
 
 
 def test_tune_deterministic():
-    from mpc_rs_tpu.apps.tune import sweep_grid
+    from mpc_rs_jax.apps.tune import sweep_grid
 
     a = sweep_grid([0.5], [3.0], seeds=2, k=128, n_ticks=8)
     b = sweep_grid([0.5], [3.0], seeds=2, k=128, n_ticks=8)

@@ -1,20 +1,16 @@
-"""Chain-kernel (multi-solve receding horizon in one pallas_call) tests.
+"""Receding-horizon chain (a lax.scan of kernel solves) tests.
 
-Interpret-mode on CPU: shapes/statuses/plant-advance semantics (the
-interpreter PRNG is a stub, so sample VALUES are only exercised on real
-TPU — tests/test_pallas.py covers value parity via external noise, and the
-chain-vs-sequential value parity ran on-chip in round 2: max |Δu₀| ≤ 1e-5
-at matched block_sublanes)."""
+Interpret mode on CPU. The kernel's generator has a plain twin, so the
+chain's values are checked against sequential solves on the same seeds."""
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from mpc_rs_tpu.controllers.mppi import MppiConfig
-from mpc_rs_tpu.models import costs, dynamics
-from mpc_rs_tpu.models.params import CartPoleParams
-from mpc_rs_tpu.ops.mppi_pallas import mppi_pallas_chain
+from mpc_rs_jax.controllers.mppi import MppiConfig
+from mpc_rs_jax.models import costs, dynamics
+from mpc_rs_jax.models.params import CartPoleParams
+from mpc_rs_jax.ops.mppi_pallas import mppi_pallas_chain, mppi_solve_pallas
 
 
 @pytest.fixture(scope="module")
@@ -46,21 +42,19 @@ def test_chain_scalar_seed_mode(setup):
     )
     assert u0s.shape == (6,) and sts.shape == (6,)
     assert (np.asarray(sts) == 0).all()
+    assert len(set(np.asarray(u0s).round(6))) > 1  # each solve has its own stream
 
 
 def test_chain_pad_to_tile(setup):
-    """J not a multiple of 8: outputs trimmed to J, final u_n from solve
-    J−1 (padding solves must not affect it)."""
+    """A chain's prefix does not depend on its length: J=3 and J=8 chains
+    with the same first 3 seeds share the warm-start prefix."""
     cfg, step, x0, u0 = setup
-    seeds = jnp.arange(3, dtype=jnp.int32)
     u0s3, sts3, un3 = mppi_pallas_chain(
-        cfg, step, costs.shaped4, 4, seeds, x0, u0, interpret=True
+        cfg, step, costs.shaped4, 4, jnp.arange(3, dtype=jnp.int32), x0, u0, interpret=True
     )
     assert u0s3.shape == (3,)
-    # J=8 chain with the same first 3 seeds shares the warm-start prefix
-    seeds8 = jnp.arange(8, dtype=jnp.int32)
     u0s8, _, _ = mppi_pallas_chain(
-        cfg, step, costs.shaped4, 4, seeds8, x0, u0, interpret=True
+        cfg, step, costs.shaped4, 4, jnp.arange(8, dtype=jnp.int32), x0, u0, interpret=True
     )
     np.testing.assert_allclose(np.asarray(u0s3), np.asarray(u0s8[:3]), rtol=1e-6)
 
@@ -77,12 +71,7 @@ def test_chain_all_inf_cost_gives_no_finite(setup):
 
 
 def test_chain_plant_mode_runs(setup):
-    """Closed-loop mode (plant=step) compiles and returns OK statuses.
-
-    The interpreter PRNG stub yields identical samples per block, so chain
-    outputs cannot reflect the state dependence here; the on-chip round-2
-    validation covered value behavior (chain-vs-sequential max |Δu₀| ≤
-    1e-5, and plant-mode survival in bench.py's closed-loop chain)."""
+    """Closed-loop mode (plant=step) returns OK statuses and finite output."""
     cfg, step, x0, u0 = setup
     seeds = jnp.arange(8, dtype=jnp.int32)
     u0s_loop, sts, un = mppi_pallas_chain(
@@ -90,3 +79,23 @@ def test_chain_plant_mode_runs(setup):
     )
     assert (np.asarray(sts) == 0).all()
     assert np.isfinite(np.asarray(u0s_loop)).all() and np.isfinite(np.asarray(un)).all()
+
+
+@pytest.mark.parametrize("plant", [False, True])
+def test_chain_matches_sequential_solves(setup, plant):
+    """The chain is the warm-started loop of single solves, value for
+    value — with the state held, or advanced by the plant each solve."""
+    cfg, step, x0, u0 = setup
+    seeds = jnp.arange(4, dtype=jnp.int32) + 20
+    u0s, sts, un = mppi_pallas_chain(cfg, step, costs.shaped4, 4, seeds, x0, u0,
+                                     interpret=True, plant=step if plant else None)
+    x, u = x0, u0
+    for j in range(4):
+        u, st = mppi_solve_pallas(cfg, step, costs.shaped4, 4, seeds[j], x, u, interpret=True)
+        assert int(st) == int(sts[j])
+        # f32: the chain's jitted plant step may contract a multiply-add
+        # that this eager loop rounds twice
+        np.testing.assert_allclose(float(u[0]), float(u0s[j]), rtol=1e-4, atol=1e-4)
+        if plant:
+            x = jnp.stack(step(*(x[c] for c in range(4)), u[0]))
+    np.testing.assert_allclose(np.asarray(u), np.asarray(un), rtol=1e-4, atol=1e-4)

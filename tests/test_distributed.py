@@ -3,7 +3,7 @@
 Spawns 2 OS processes, each with 1 local CPU device, joined by
 ``init_distributed`` into a 2-device global mesh with Gloo collectives.
 The K-sharded MPPI solve then runs ACROSS PROCESS BOUNDARIES — the same
-code path a multi-host TPU pod uses over DCN (parallel/distributed.py,
+code path a multi-host job uses across hosts (parallel/distributed.py,
 parallel/sharded_mppi.py), exercised for real instead of only on a
 single-process virtual mesh."""
 
@@ -25,16 +25,16 @@ _WORKER = textwrap.dedent(
         pass
     pid = int(sys.argv[1])
     port = sys.argv[2]
-    from mpc_rs_tpu.parallel.distributed import init_distributed, global_rollout_mesh
+    from mpc_rs_jax.parallel.distributed import init_distributed, global_rollout_mesh
     init_distributed(f"localhost:{port}", 2, pid)
     assert len(jax.devices()) == 2 and len(jax.local_devices()) == 1
 
     import jax.numpy as jnp
     import numpy as np
-    from mpc_rs_tpu.controllers.mppi import MppiConfig, mppi_solve
-    from mpc_rs_tpu.models import costs, dynamics
-    from mpc_rs_tpu.models.params import CartPoleParams
-    from mpc_rs_tpu.parallel.sharded_mppi import make_sharded_mppi
+    from mpc_rs_jax.controllers.mppi import MppiConfig, mppi_solve
+    from mpc_rs_jax.models import costs, dynamics
+    from mpc_rs_jax.models.params import CartPoleParams
+    from mpc_rs_jax.parallel.sharded_mppi import make_sharded_mppi
 
     p = CartPoleParams.single_wheel()
     step = dynamics.make_cartpole_nonlinear(p, 0.1)
@@ -69,18 +69,18 @@ _FLEET_WORKER = textwrap.dedent(
         pass
     pid = int(sys.argv[1])
     port = sys.argv[2]
-    from mpc_rs_tpu.parallel.distributed import init_distributed
+    from mpc_rs_jax.parallel.distributed import init_distributed
     init_distributed(f"localhost:{port}", 2, pid)
     assert len(jax.devices()) == 2 and len(jax.local_devices()) == 1
 
     import numpy as np
     import jax.numpy as jnp
     from jax.sharding import NamedSharding, PartitionSpec as P
-    from mpc_rs_tpu.apps.fleet import build_fleet, build_qp_fleet
-    from mpc_rs_tpu.parallel.mesh import make_mesh
+    from mpc_rs_jax.apps.fleet import build_fleet, build_qp_fleet
+    from mpc_rs_jax.parallel.mesh import make_mesh
 
     # --- scenario-axis MPPI+UKF fleet across the process boundary (the
-    # DCN analogue of the north-star workload, SURVEY section 2d): 16
+    # multi-host form of the north-star workload, SURVEY section 2d): 16
     # cartpole4 closed loops, 8 per process, AoS layout so every carry
     # leaf is batch-leading
     mesh = make_mesh({"scenario": 2, "rollouts": 1})
@@ -166,5 +166,5 @@ def test_two_process_scenario_fleet(tmp_path):
     """Scenario-sharded closed loops (MPPI+UKF fleet AND the QP fleet)
     across a REAL OS-process boundary with Gloo collectives — the
     multi-host-shaped mesh for the north-star workload (VERDICT r4
-    Next #7; SURVEY §2d scenario-parallel batch over ICI/DCN)."""
+    Next #7; SURVEY §2d scenario-parallel batch across hosts)."""
     _run_two_process(tmp_path, _FLEET_WORKER, "12421", "DIST_FLEET_OK")

@@ -11,9 +11,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from mpc_rs_tpu.models import dynamics
-from mpc_rs_tpu.models.params import CartPoleParams
-from mpc_rs_tpu.utils import as_vector_fn
+from mpc_rs_jax.models import dynamics
+from mpc_rs_jax.models.params import CartPoleParams
+from mpc_rs_jax.utils import as_vector_fn
 
 P4 = [
     ("linear", lambda p: dynamics.make_cartpole_linear(p, 0.05), CartPoleParams.single_wheel()),

@@ -10,11 +10,11 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from mpc_rs_tpu.controllers.mppi import MppiConfig, mppi_solve
-from mpc_rs_tpu.estimators.ukf import ukf_init, ukf_predict, ukf_update
-from mpc_rs_tpu.models import costs, dynamics, observation
-from mpc_rs_tpu.models.params import CartPoleParams
-from mpc_rs_tpu.utils import as_vector_fn
+from mpc_rs_jax.controllers.mppi import MppiConfig, mppi_solve
+from mpc_rs_jax.estimators.ukf import ukf_init, ukf_predict, ukf_update
+from mpc_rs_jax.models import costs, dynamics, observation
+from mpc_rs_jax.models.params import CartPoleParams
+from mpc_rs_jax.utils import as_vector_fn
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden")
 
@@ -62,9 +62,9 @@ def test_golden_ukf_cartpole():
 
 
 def test_golden_qp_mpc():
-    from mpc_rs_tpu.controllers.panoc import PanocConfig, box_projection, panoc_solve
-    from mpc_rs_tpu.controllers.qp import build_condensed_qp, make_qp_value_and_grad
-    from mpc_rs_tpu.models import reference
+    from mpc_rs_jax.controllers.panoc import PanocConfig, box_projection, panoc_solve
+    from mpc_rs_jax.controllers.qp import build_condensed_qp, make_qp_value_and_grad
+    from mpc_rs_jax.models import reference
 
     ref = np.load(os.path.join(GOLDEN, "qp_mpc.npz"))
     p = CartPoleParams.single_wheel()
@@ -95,8 +95,8 @@ def test_golden_flagship_multirate_both_modes():
     import contextlib
     import io
 
-    from mpc_rs_tpu.apps.mppi_examples import mppi4_non_liner_ukf
-    from mpc_rs_tpu.apps.run import build_parser
+    from mpc_rs_jax.apps.mppi_examples import mppi4_non_liner_ukf
+    from mpc_rs_jax.apps.run import build_parser
 
     for tag, extra in (("debug", []), ("est", ["--use-ukf-estimate"])):
         ref = np.load(os.path.join(GOLDEN, f"flagship_multirate_{tag}.npz"))
@@ -116,10 +116,10 @@ def test_golden_flagship_multirate_both_modes():
 def test_golden_commu_packet_chain():
     """Byte-fixed Sensor3 frames through COBS→parse→gen_q/gen_r→masked
     UKF reproduce the pinned estimates (the HW twin's math path)."""
-    from mpc_rs_tpu.estimators.ukf import ukf_init, ukf_predict, ukf_update
-    from mpc_rs_tpu.io.packets import Sensor3
-    from mpc_rs_tpu.models import dynamics, noise as noise_mod, observation
-    from mpc_rs_tpu.models.params import CartPoleParams
+    from mpc_rs_jax.estimators.ukf import ukf_init, ukf_predict, ukf_update
+    from mpc_rs_jax.io.packets import Sensor3
+    from mpc_rs_jax.models import dynamics, noise as noise_mod, observation
+    from mpc_rs_jax.models.params import CartPoleParams
 
     ref = np.load(os.path.join(GOLDEN, "commu_packet_chain.npz"))
     frames = ref["frames"].tobytes()
@@ -157,10 +157,10 @@ def test_golden_commu_packet_chain():
 def test_golden_pallas_external_noise_trajectory():
     """Closed loop through the fused kernel tier under a fixed noise tensor
     matches the pinned trajectory (kernel layout/LSE/finalize regression)."""
-    from mpc_rs_tpu.controllers.mppi import MppiConfig
-    from mpc_rs_tpu.models import costs, dynamics
-    from mpc_rs_tpu.models.params import CartPoleParams
-    from mpc_rs_tpu.ops.mppi_pallas import mppi_solve_pallas
+    from mpc_rs_jax.controllers.mppi import MppiConfig
+    from mpc_rs_jax.models import costs, dynamics
+    from mpc_rs_jax.models.params import CartPoleParams
+    from mpc_rs_jax.ops.mppi_pallas import mppi_solve_pallas
 
     ref = np.load(os.path.join(GOLDEN, "pallas_external_noise.npz"))
     p = CartPoleParams.single_wheel()
@@ -174,9 +174,11 @@ def test_golden_pallas_external_noise_trajectory():
     u_n = jnp.zeros(8, jnp.float32)
     for i in range(10):
         eps = (3.0 * rng.standard_normal((1, 8, bs, 128))).astype(np.float32)
+        # the fixture's (block, step, sublane, lane) draw order, as (K, N)
+        # rows: rollout = sublane·128 + lane
+        eps_kn = eps.transpose(0, 2, 3, 1).reshape(1024, 8)
         u_n, st = mppi_solve_pallas(
-            cfg, step, costs.shaped4, 4, 0, x, u_n,
-            block_sublanes=bs, interpret=True, noise=jnp.asarray(eps),
+            cfg, step, costs.shaped4, 4, 0, x, u_n, interpret=True, noise=jnp.asarray(eps_kn),
         )
         assert int(st) == 0
         x = jnp.stack(step(*(x[j] for j in range(4)), u_n[0]))
@@ -188,13 +190,13 @@ def test_golden_box_qp_newton_both_paths():
     """Projected-Newton box-QP closed loop vs the pinned fixture — BOTH
     solve paths (masked unrolled Cholesky; active-set inverse table) must
     reproduce it. A drift here is a solver behavior change."""
-    from mpc_rs_tpu.controllers.qp import (
+    from mpc_rs_jax.controllers.qp import (
         active_set_inverse_table,
         box_qp_newton,
         build_condensed_qp,
         qp_linear_term,
     )
-    from mpc_rs_tpu.models import reference
+    from mpc_rs_jax.models import reference
 
     ref = np.load(os.path.join(GOLDEN, "box_qp_newton.npz"))
     p = CartPoleParams.single_wheel()

@@ -5,14 +5,14 @@ import struct
 import numpy as np
 import pytest
 
-from mpc_rs_tpu.io.cobs import (
+from mpc_rs_jax.io.cobs import (
     _py_cobs_decode,
     _py_cobs_encode,
     cobs_decode,
     cobs_encode,
     native_available,
 )
-from mpc_rs_tpu.io.packets import Control, Sensor, Sensor2, Sensor3, State
+from mpc_rs_jax.io.packets import Control, Sensor, Sensor2, Sensor3, State
 
 
 def test_native_builds():
@@ -89,7 +89,7 @@ def test_sensor3_packed_layout():
 def test_serial_pty_loopback():
     """uart.rs smoke test over a PTY: host sends Control, fake MCU replies
     with an 18-byte framed State (uart.rs:13-31)."""
-    from mpc_rs_tpu.io.serial import PtyPair, SerialPort
+    from mpc_rs_jax.io.serial import PtyPair, SerialPort
 
     pair = PtyPair()
     try:

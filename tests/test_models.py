@@ -9,9 +9,9 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from mpc_rs_tpu.models import costs, dynamics, noise, observation, reference
-from mpc_rs_tpu.models.params import CartPoleParams
-from mpc_rs_tpu.utils import as_vector_fn
+from mpc_rs_jax.models import costs, dynamics, noise, observation, reference
+from mpc_rs_jax.models.params import CartPoleParams
+from mpc_rs_jax.utils import as_vector_fn
 
 DT = 0.1
 

@@ -4,9 +4,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from mpc_rs_tpu.controllers.mppi import MppiConfig, MppiStatus, mppi_solve, rollout_scores
-from mpc_rs_tpu.models import costs, dynamics
-from mpc_rs_tpu.models.params import CartPoleParams
+from mpc_rs_jax.controllers.mppi import MppiConfig, MppiStatus, mppi_solve, rollout_scores
+from mpc_rs_jax.models import costs, dynamics
+from mpc_rs_jax.models.params import CartPoleParams
 
 
 def _di_cfg(k=512):
@@ -121,7 +121,7 @@ def test_rollout_scores_vs_numpy_oracle():
 
 
 def test_f32_scores_match_f64_on_same_samples():
-    """f32 (TPU-native) rollout scoring tracks the f64 oracle on identical
+    """f32 (the accelerator dtype) rollout scoring tracks the f64 oracle on identical
     sampled sequences — the dtype-parity requirement of SURVEY §7."""
     p = CartPoleParams.single_wheel()
     step64 = dynamics.make_cartpole_nonlinear(p, 0.1)

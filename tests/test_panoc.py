@@ -5,15 +5,15 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from mpc_rs_tpu.controllers.panoc import (
+from mpc_rs_jax.controllers.panoc import (
     PanocConfig,
     ball2_projection,
     box_projection,
     make_fd_value_and_grad,
     panoc_solve,
 )
-from mpc_rs_tpu.controllers.pid import PidConfig, pid_init, pid_update
-from mpc_rs_tpu.controllers.qp import (
+from mpc_rs_jax.controllers.pid import PidConfig, pid_init, pid_update
+from mpc_rs_jax.controllers.qp import (
     build_condensed_qp,
     create_f_matrix,
     create_g_matrix,
@@ -22,8 +22,8 @@ from mpc_rs_tpu.controllers.qp import (
     qp_cost,
     qp_grad,
 )
-from mpc_rs_tpu.models import dynamics, reference
-from mpc_rs_tpu.models.params import CartPoleParams
+from mpc_rs_jax.models import dynamics, reference
+from mpc_rs_jax.models.params import CartPoleParams
 
 
 def test_panoc_ball2_smoke():
@@ -86,8 +86,8 @@ def test_panoc_faster_than_pgd_iterations():
 
 def test_fd_gradient_matches_autodiff():
     p = CartPoleParams.single_wheel()
-    from mpc_rs_tpu.models import costs
-    from mpc_rs_tpu.utils import as_vector_fn
+    from mpc_rs_jax.models import costs
+    from mpc_rs_jax.utils import as_vector_fn
 
     step = as_vector_fn(dynamics.make_cartpole_nonlinear(p, 0.01), 4)
     pe = reference.make_planning_err(p.l)
@@ -253,7 +253,7 @@ def test_box_qp_newton_kkt_exact():
     """box_qp_newton reaches the exact KKT point of the condensed box-QP:
     free-coordinate gradient ~ machine zero, bound multipliers signed
     correctly — even with most coordinates bound-active (tight box)."""
-    from mpc_rs_tpu.controllers.qp import box_qp_newton, qp_linear_term
+    from mpc_rs_jax.controllers.qp import box_qp_newton, qp_linear_term
 
     qp = _cartpole_qp()
     gen_ref = reference.make_gen_ref_raised_cosine(8)
@@ -265,7 +265,7 @@ def test_box_qp_newton_kkt_exact():
     u = np.array(box_qp_newton(qp.h, b, jnp.zeros((64, 8)), lo, hi, iters=16))
     # active-set inverse-table path (single-instance latency mode): same
     # iterates up to rounding
-    from mpc_rs_tpu.controllers.qp import active_set_inverse_table
+    from mpc_rs_jax.controllers.qp import active_set_inverse_table
 
     tbl = active_set_inverse_table(qp.h)
     u_tbl = np.array(
@@ -285,7 +285,7 @@ def test_box_qp_newton_kkt_exact():
 def test_box_qp_newton_matches_panoc():
     """Same minimizer as panoc_solve on the same strictly convex QP (wide
     box, interior optimum → both converge tightly), f64."""
-    from mpc_rs_tpu.controllers.qp import box_qp_newton, qp_linear_term
+    from mpc_rs_jax.controllers.qp import box_qp_newton, qp_linear_term
 
     qp = _cartpole_qp()
     gen_ref = reference.make_gen_ref_raised_cosine(8)
@@ -308,7 +308,7 @@ def test_box_qp_newton_matches_panoc():
 def test_box_qp_newton_jit_vmap_f32():
     """The fleet usage pattern: f32, jitted, batched; solution must satisfy
     KKT to f32 precision and respect the box exactly."""
-    from mpc_rs_tpu.controllers.qp import box_qp_newton, qp_linear_term
+    from mpc_rs_jax.controllers.qp import box_qp_newton, qp_linear_term
 
     qp = _cartpole_qp(dtype=jnp.float32)
     gen_ref = reference.make_gen_ref_raised_cosine(8)

@@ -1,11 +1,10 @@
 """Small-N re-check of the distribution-level parity harness
 (scripts/parity_dist.py — VERDICT r4 Next #2).
 
-The committed artifact PARITY_DIST_r05.json is recorded at 200
-episodes/side; this test re-runs a scaled-down version (fewer episodes,
-smaller K) in CI so the harness itself — both episode loops, the metrics,
-and the statistics — stays exercised. Bands are loose (16 episodes has
-little KS power); the full-N statement lives in the artifact.
+The harness's full statement is 200 episodes/side; this test re-runs a
+scaled-down version (fewer episodes, smaller K) in CI so the harness
+itself — both episode loops, the metrics, and the statistics — stays
+exercised. Bands are loose (16 episodes has little KS power).
 """
 
 import os
@@ -43,9 +42,7 @@ def test_cartpole4_small_n(pd, monkeypatch):
 def test_cartpole4_est_small_n(pd, monkeypatch):
     """Small-N re-check of the round-5 fifth config: the cartpole4 FLEET
     stack with its UKF(4,3) in the loop (20 Hz control, 5 substeps at
-    100 Hz) vs the C++ oracle driver — the full-N statement (KS
-    p=0.22/0.09 at 200 eps/side on the production TPU tier) lives in
-    PARITY_DIST_r05.json."""
+    100 Hz) vs the C++ oracle driver."""
     monkeypatch.setattr(pd, "N_TICKS_CART_EST", 60)  # 3 s
     n = 12
     lib = pd.run_library_fleet("cartpole4", pd.K_CART_EST,

@@ -3,16 +3,17 @@
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
-from mpc_rs_tpu.controllers.mppi import MppiConfig
-from mpc_rs_tpu.estimators.ukf import ukf_init
-from mpc_rs_tpu.models import costs, dynamics
-from mpc_rs_tpu.models.params import CartPoleParams
-from mpc_rs_tpu.parallel.scaling import measure_scaling
-from mpc_rs_tpu.runtime.checkpoint import load_pytree, save_pytree
-from mpc_rs_tpu.runtime.logger import CsvLogger
-from mpc_rs_tpu.runtime.loop import MultiRateConfig, pulse_disturbance, run_multirate_loop
-from mpc_rs_tpu.runtime.profiler import SolveTimer
+from mpc_rs_jax.controllers.mppi import MppiConfig
+from mpc_rs_jax.estimators.ukf import ukf_init
+from mpc_rs_jax.models import costs, dynamics
+from mpc_rs_jax.models.params import CartPoleParams
+from mpc_rs_jax.parallel.scaling import measure_scaling
+from mpc_rs_jax.runtime.checkpoint import load_pytree, save_pytree
+from mpc_rs_jax.runtime.logger import CsvLogger
+from mpc_rs_jax.runtime.loop import MultiRateConfig, pulse_disturbance, run_multirate_loop
+from mpc_rs_jax.runtime.profiler import SolveTimer
 
 
 def test_checkpoint_roundtrip(tmp_path):
@@ -148,7 +149,7 @@ def test_multirate_free_running_controller():
     import jax.numpy as jnp
     import numpy as np
 
-    from mpc_rs_tpu.runtime.loop import MultiRateConfig, run_multirate_loop
+    from mpc_rs_jax.runtime.loop import MultiRateConfig, run_multirate_loop
 
     calls = {"n": 0}
 
@@ -174,3 +175,13 @@ def test_multirate_free_running_controller():
     )
     # one solve per physics tick (50 ticks in 0.5 s at 10 ms)
     assert res.n_solves >= 49, res.n_solves
+
+
+def test_checkpoint_orbax_missing_is_a_clear_error(tmp_path, monkeypatch):
+    """orbax is optional: without it the orbax backend says what to do."""
+    import sys
+
+    monkeypatch.setitem(sys.modules, "orbax", None)
+    monkeypatch.setitem(sys.modules, "orbax.checkpoint", None)
+    with pytest.raises(ImportError, match="backend='npz'"):
+        save_pytree(str(tmp_path / "x"), {"a": jnp.zeros(2)}, backend="orbax")

@@ -5,13 +5,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from mpc_rs_tpu.controllers.mppi import MppiConfig
-from mpc_rs_tpu.estimators.ukf import ukf_init
-from mpc_rs_tpu.models import costs, dynamics, observation
-from mpc_rs_tpu.models.params import CartPoleParams
-from mpc_rs_tpu.parallel.mesh import make_mesh
-from mpc_rs_tpu.parallel.scenario import init_scenario_carry, make_scenario_step
-from mpc_rs_tpu.utils import as_vector_fn
+from mpc_rs_jax.controllers.mppi import MppiConfig
+from mpc_rs_jax.estimators.ukf import ukf_init
+from mpc_rs_jax.models import costs, dynamics, observation
+from mpc_rs_jax.models.params import CartPoleParams
+from mpc_rs_jax.parallel.mesh import make_mesh
+from mpc_rs_jax.parallel.scenario import init_scenario_carry, make_scenario_step
+from mpc_rs_jax.utils import as_vector_fn
 
 
 def _build(mesh, batch, k_total):
@@ -76,7 +76,7 @@ def test_scenario_substeps_and_disturbance():
         out = plant6(*(xv[..., i] for i in range(6)), u, dt_sub, 0.0)
         return jnp.stack(jnp.broadcast_arrays(*out), axis=-1)
 
-    from mpc_rs_tpu.models import noise as noise_mod
+    from mpc_rs_jax.models import noise as noise_mod
 
     hx = observation.make_hx_imu6(p)
     sens = jnp.asarray([200.0, 200.0, 10.0, 0.05, 0.05], jnp.float32)
@@ -115,7 +115,7 @@ def test_scenario_substeps_and_disturbance():
 
 
 def test_ukf_guard_recovers_nan():
-    from mpc_rs_tpu.estimators.ukf import UkfState, ukf_guard
+    from mpc_rs_jax.estimators.ukf import UkfState, ukf_guard
 
     p0 = jnp.eye(3, dtype=jnp.float32)
     bad = UkfState(
@@ -135,7 +135,7 @@ def test_ukf_guard_recovers_nan():
 def test_fleet_build_both_models_one_tick():
     """build_fleet wires the validated round-2 operating points; one tick of
     each model runs finite on the jnp backend."""
-    from mpc_rs_tpu.apps.fleet import build_fleet
+    from mpc_rs_jax.apps.fleet import build_fleet
 
     mesh = make_mesh({"scenario": 1, "rollouts": 1}, devices=jax.devices()[:1])
     for model in ("cartpole4", "flagship6"):
@@ -165,7 +165,7 @@ def test_qp_fleet_parks_population(solver):
     """Batched gradient-MPC fleet: every scenario parks within 3 s and
     stays upright — examples/op-mpc-x-calc-nl.rs batched. Both solvers
     (batched projected Newton, vmapped PANOC) must close the loop."""
-    from mpc_rs_tpu.apps.fleet import build_qp_fleet
+    from mpc_rs_jax.apps.fleet import build_qp_fleet
 
     tick, carry, dt = build_qp_fleet(16, seed=1, max_iter=60, solver=solver)
     for _ in range(int(3.0 / dt)):
@@ -185,8 +185,8 @@ def test_qp_fleet_shards_over_scenario_mesh():
     the chaotic plant, so multi-tick states are compared behaviorally)."""
     from jax.sharding import NamedSharding, PartitionSpec as P
 
-    from mpc_rs_tpu.apps.fleet import build_qp_fleet
-    from mpc_rs_tpu.parallel.mesh import make_mesh
+    from mpc_rs_jax.apps.fleet import build_qp_fleet
+    from mpc_rs_jax.parallel.mesh import make_mesh
 
     mesh = make_mesh({"scenario": 8})
     tick, carry, dt = build_qp_fleet(64, seed=3)

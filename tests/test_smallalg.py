@@ -3,7 +3,7 @@
 import jax.numpy as jnp
 import numpy as np
 
-from mpc_rs_tpu.estimators.smallalg import chol_solve_unrolled, chol_unrolled, spd_solve_unrolled
+from mpc_rs_jax.estimators.smallalg import chol_solve_unrolled, chol_unrolled, spd_solve_unrolled
 
 
 def _spd(rng, b, n):
@@ -55,7 +55,7 @@ def test_eigh_jacobi_unrolled_accuracy():
     import numpy as np
     import jax.numpy as jnp
 
-    from mpc_rs_tpu.estimators.smallalg import eigh_jacobi_unrolled
+    from mpc_rs_jax.estimators.smallalg import eigh_jacobi_unrolled
 
     rng = np.random.default_rng(3)
     for n in (4, 6):

@@ -3,7 +3,7 @@
 Every physical constant, gain, and matrix entry below is re-typed directly
 from the cited reference const block as a Python literal (or the same
 const-expression the Rust source spells out, e.g. ``M2 = 2.3 - 2.0*M1``).
-NOTHING here imports from ``mpc_rs_tpu.models.params`` or shares code with
+NOTHING here imports from ``mpc_rs_jax.models.params`` or shares code with
 the library's model zoo — a mistyped constant in ``models/params.py`` or a
 mis-transcribed term in ``models/dynamics.py`` cannot be mirrored by these
 oracles. All oracles are straight-line NumPy f64 transcriptions of the Rust.
@@ -16,9 +16,9 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from mpc_rs_tpu.models import costs, dynamics, noise, observation, reference
-from mpc_rs_tpu.models.params import CartPoleParams  # library side ONLY
-from mpc_rs_tpu.utils import as_vector_fn
+from mpc_rs_jax.models import costs, dynamics, noise, observation, reference
+from mpc_rs_jax.models.params import CartPoleParams  # library side ONLY
+from mpc_rs_jax.utils import as_vector_fn
 
 # ---------------------------------------------------------------------------
 # Literal const blocks, typed from the reference (one dict per const block).
@@ -643,7 +643,7 @@ def test_gen_ref_zero():
 
 def test_hand_tuned_ukf_qr_literals():
     # mppi4-non-liner-s.rs:216-228: the --ref-qr constants in mppi_examples
-    from mpc_rs_tpu.apps import mppi_examples as me
+    from mpc_rs_jax.apps import mppi_examples as me
     import inspect
 
     src = inspect.getsource(me)

@@ -5,12 +5,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from mpc_rs_tpu.estimators.gaussian import Gaussian, kf1d_predict, kf1d_update_explicit
-from mpc_rs_tpu.estimators.kf import kf_predict, kf_update, kf_update_joseph
-from mpc_rs_tpu.estimators.ukf import merwe_weights, sigma_points, ukf_init, ukf_predict, ukf_update
-from mpc_rs_tpu.models import dynamics, observation
-from mpc_rs_tpu.models.params import CartPoleParams
-from mpc_rs_tpu.utils import as_vector_fn
+from mpc_rs_jax.estimators.gaussian import Gaussian, kf1d_predict, kf1d_update_explicit
+from mpc_rs_jax.estimators.kf import kf_predict, kf_update, kf_update_joseph
+from mpc_rs_jax.estimators.ukf import merwe_weights, sigma_points, ukf_init, ukf_predict, ukf_update
+from mpc_rs_jax.models import dynamics, observation
+from mpc_rs_jax.models.params import CartPoleParams
+from mpc_rs_jax.utils import as_vector_fn
 
 
 class NpUkf:
@@ -76,7 +76,7 @@ def test_sigma_points_reconstruct_moments():
     a = rng.normal(size=(4, 4))
     p = a @ a.T + 0.5 * np.eye(4)
     x = rng.normal(size=4)
-    from mpc_rs_tpu.estimators.ukf import UkfParams
+    from mpc_rs_jax.estimators.ukf import UkfParams
 
     wm, wc, c = merwe_weights(4, dtype=jnp.float64)
     params = UkfParams(wm=wm, wc=wc, c=c, n=4, n_obs=2)
@@ -218,7 +218,7 @@ def test_ukf_f32_no_catastrophic_cancellation():
     (the naive UT mean NaNs within ~100 steps on a 6-state filter)."""
     p = CartPoleParams.single_wheel()
     fx = as_vector_fn(dynamics.make_pen6(p, 0.01), 6)
-    from mpc_rs_tpu.models.observation import make_hx_force6
+    from mpc_rs_jax.models.observation import make_hx_force6
 
     hx = make_hx_force6(p)
     q = jnp.diag(jnp.asarray([0, 0, 0, 0, 0, 10.0], jnp.float32))
@@ -238,7 +238,7 @@ def test_ukf_f32_no_catastrophic_cancellation():
 def test_ukf_jacobi_sigma_root_moment_contract():
     """The defining contract of ANY sigma root: identity-UT over the sigma
     set reconstructs (x, P) exactly. The unrolled-Jacobi root
-    (smallalg.eigh_jacobi_unrolled, the fast TPU option) must satisfy it to
+    (smallalg.eigh_jacobi_unrolled, the elementwise fleet option) must satisfy it to
     its decomposition residual (~1e-5 of scale in f32), matching eigh.
 
     Filter-level nonlinear per-step comparison is deliberately NOT tested:
@@ -246,11 +246,11 @@ def test_ukf_jacobi_sigma_root_moment_contract():
     1e4 (measured: eigh-vs-eigh with 1e-6-perturbed P moves the state by up
     to 2.6e-2 of scale), so any tolerance tight enough to be meaningful
     fails for eigh against itself. Nonlinear closed-loop equivalence is
-    evidenced at the survival level instead (TPU flagship fleet, B=1024,
+    evidenced at the survival level instead (flagship fleet, B=1024,
     seeds 0-3: jacobi 4094/4096 scenario-survivals, per-seed identical to
     exact eigh — the two tipped scenarios tip under BOTH roots, so they
     are the operating point's, not the root's; DESIGN.md §5)."""
-    from mpc_rs_tpu.estimators.ukf import sigma_points, unscented_transform
+    from mpc_rs_jax.estimators.ukf import sigma_points, unscented_transform
 
     rng = np.random.default_rng(7)
     for trial in range(20):
@@ -278,7 +278,7 @@ def test_ukf_jacobi_matches_eigh_on_linear_model():
     the sigma set — which every valid root reproduces (moment contract
     above) — so eigh and jacobi must produce the same posterior up to the
     decomposition residual, with no chaotic amplification to excuse. This
-    pins filter-level equivalence of the fast TPU root on a well-posed
+    pins filter-level equivalence of the Jacobi root on a well-posed
     problem (cf. two-liner-kf.rs: linear KF is the reference's own oracle
     tier). Run in f64 so the assertion sits at the decomposition residual
     (~1e-6) instead of the f32 UT roundoff floor (~2e-3, measured)."""
@@ -323,7 +323,7 @@ def test_jacobi_jit_vmap_reconstructs():
     (smallalg.jacobi_entries) must reconstruct under jit+vmap exactly."""
     import numpy as np
 
-    from mpc_rs_tpu.estimators.smallalg import eigh_jacobi_unrolled
+    from mpc_rs_jax.estimators.smallalg import eigh_jacobi_unrolled
 
     rng = np.random.default_rng(7)
     b, n = 32, 4
@@ -350,7 +350,7 @@ def test_ukf_observation_normalization_equivalence_f64():
     dt = 0.01
     hx = observation.make_hx_imu6(p)
     s = jnp.asarray([200.0, 200.0, 10.0, 0.05, 0.05], jnp.float64)
-    from mpc_rs_tpu.models import noise as noise_mod
+    from mpc_rs_jax.models import noise as noise_mod
 
     q = noise_mod.gen_q6(jnp.float64(2.15 * dt))
     r_raw = jnp.diag(s)  # the reference's σ-as-R quirk, verbatim
@@ -401,9 +401,9 @@ def test_f32_predict_alpha_conditioning():
           the amplification that inflated the est-in-loop flagship's
           free-running θ-RMS 0.135 → 0.17-0.18 until round 5
           (scripts/diag_flagship_est_bisect.py; closed-loop distribution
-          re-validated on-chip in PARITY_DIST_r05.json).
+          checked against the oracle by scripts/parity_dist.py).
     """
-    from mpc_rs_tpu.models import noise as noise_mod
+    from mpc_rs_jax.models import noise as noise_mod
 
     p = CartPoleParams.two_wheel()
     dt = 0.01
@@ -460,7 +460,7 @@ def test_f32_closed_loop_estimator_fidelity():
     controller regulates the noisy estimate to zero while the truth
     drifts), measured where it occurs — in the free-running artifact.
     Here we pin the noise injection itself, deterministically."""
-    from mpc_rs_tpu.models import noise as noise_mod
+    from mpc_rs_jax.models import noise as noise_mod
 
     p = CartPoleParams.two_wheel()
     dt = 0.01

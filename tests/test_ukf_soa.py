@@ -11,8 +11,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from mpc_rs_tpu.estimators import ukf_soa
-from mpc_rs_tpu.estimators.ukf import ukf_init, ukf_predict, ukf_update
+from mpc_rs_jax.estimators import ukf_soa
+from mpc_rs_jax.estimators.ukf import ukf_init, ukf_predict, ukf_update
 
 
 def _component_fx(dt=0.01):
@@ -78,7 +78,7 @@ def test_soa_step_matches_aos(sqrt_method):
     u = rng.normal(size=(b,))
 
     # AoS: vmapped predict+update
-    from mpc_rs_tpu.estimators.ukf import UkfState
+    from mpc_rs_jax.estimators.ukf import UkfState
 
     m = 2 * n + 1
     aos = UkfState(
@@ -197,7 +197,7 @@ def test_soa_jit_linear_matches_aos():
     def vhx(x):
         return jnp.stack(jnp.broadcast_arrays(*chx(tuple(x[..., i] for i in range(n)))), axis=-1)
 
-    from mpc_rs_tpu.estimators.ukf import UkfState
+    from mpc_rs_jax.estimators.ukf import UkfState
 
     m = 2 * n + 1
     aos = UkfState(
